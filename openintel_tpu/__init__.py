@@ -1,14 +1,16 @@
-"""openintel-tpu — a TPU-native social-sentiment × market-action speculation framework.
+"""openintel-tpu — a social-sentiment × market-action speculation framework with a
+device-resident hybrid retrieval engine.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of Kloudy-Sky/openintel
-(reference: a hexagonal Rust CLI + MCP server), re-architected TPU-first:
+(reference: a hexagonal Rust CLI + MCP server), re-architected around one
+compiled device program per query batch:
 
 - the scoring core (reference ``src/adapters/analyzer/lexicon.rs``) generalises to a
-  TPU-resident hybrid retrieval engine: BM25 postings scoring, dense cosine top-k,
+  device-resident hybrid retrieval engine: BM25 postings scoring, dense cosine top-k,
   and reciprocal-rank fusion (``openintel_tpu.ops``, ``openintel_tpu.models``);
 - the fusion engine (reference ``src/domain/engine/speculation_engine.rs``) is a pure,
   clock-injected core with a vectorised jittable batch path (``openintel_tpu.domain``);
-- the corpus shards over a ``jax.sharding.Mesh`` with per-shard top-k and an ICI
+- the corpus shards over a ``jax.sharding.Mesh`` with per-shard top-k and an
   all-gather merge (``openintel_tpu.parallel``);
 - the host shell (ingest adapters, credentials, CLI, MCP server) mirrors the
   reference's graceful-degradation semantics (``openintel_tpu.sources``,

@@ -110,20 +110,15 @@ async def analyze_batch(
 ) -> list:
     """Batched analyze: IO fans out per ticker concurrently, then ALL tickers
     aggregate in ONE device program (engine_batch.aggregate_batch) — the
-    TPU-native analogue of the reference's join_all over tickers
+    batched analogue of the reference's join_all over tickers
     (reference: src/mcp/tools.rs:159-174).
 
     Returns one entry per request: a SpeculationReport, or the Exception that
     ticker raised (one bad ticker never fails the batch)."""
-    import contextlib
-
-    import jax
-
     from openintel_tpu.domain.engine_batch import (
         aggregate_batch,
         pack_batch,
         reports_from_batch,
-        small_batch_device,
     )
 
     async def one(req: AnalysisRequest):
@@ -147,14 +142,8 @@ async def analyze_batch(
         ]
         tickers = [results[i][0][0] for i in idxs]
         notes = [results[i][0][4] for i in idxs]
-        # a typical watchlist is tiny math: run it on the host CPU backend
-        # rather than paying a remote-accelerator dispatch + first compile
-        n_posts = max((len(s) for _, s, _ in inputs), default=0)
-        dev = small_batch_device(len(inputs) * max(n_posts, 1))
-        ctx = jax.default_device(dev) if dev is not None else contextlib.nullcontext()
-        with ctx:
-            batch_sig, batch_mkt = pack_batch(inputs)
-            report_cols = aggregate_batch(batch_sig, batch_mkt, cfg)
+        batch_sig, batch_mkt = pack_batch(inputs)
+        report_cols = aggregate_batch(batch_sig, batch_mkt, cfg)
         reports = reports_from_batch(
             tickers, inputs, report_cols, when, notes_per_ticker=notes
         )

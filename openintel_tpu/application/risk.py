@@ -96,12 +96,6 @@ async def risk_screen(
         batch_idx.append(i)
 
     if batch_idx:
-        import contextlib
-
-        import jax
-
-        from openintel_tpu.domain.engine_batch import small_batch_device
-
         t_max = max(len(fetched[i][1]) for i in batch_idx)
         b = len(batch_idx)
         high = np.zeros((b, t_max), np.float32)
@@ -113,12 +107,7 @@ async def risk_screen(
             rows = [(bar.high, bar.low, bar.close) for bar in hist]
             arr = np.asarray([rows[0]] * pad + rows, np.float32)
             high[j], low[j], close[j] = arr[:, 0], arr[:, 1], arr[:, 2]
-        dev = small_batch_device(b * t_max)
-        ctx = (
-            jax.default_device(dev) if dev is not None else contextlib.nullcontext()
-        )
-        with ctx:
-            atrs = np.asarray(atr_batch(high, low, close))
+        atrs = np.asarray(atr_batch(high, low, close))
         for j, i in enumerate(batch_idx):
             ticker, history, _ = fetched[i]
             try:

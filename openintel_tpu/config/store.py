@@ -7,7 +7,7 @@ Parity targets (reference: src/config/store.rs:25-129):
 - InMemoryStore (+ failing()) is the hermetic test fake.
 
 The OS keychain is optional here: the ``keyring`` package may be absent in the
-TPU pod image, in which case KeychainStore reports itself unavailable and
+headless server image, in which case KeychainStore reports itself unavailable and
 every operation fails cleanly (env-variable credentials still work).
 """
 

@@ -1,6 +1,6 @@
 """Vectorised, jittable batch variant of the SpeculationEngine.
 
-Scores B tickers at once on device — the TPU-native analogue of the reference's
+Scores B tickers at once on device — the batched analogue of the reference's
 async fan-out over tickers in ``run_scan`` / ``run_compare``
 (reference: src/mcp/tools.rs:159-174, :268-275). Semantics are bit-identical to
 :class:`openintel_tpu.domain.engine.SpeculationEngine` (asserted by tests that
@@ -193,31 +193,6 @@ def aggregate_batch(
 # SpeculationReport entities from the columns, with note/field parity to the
 # scalar engine (asserted by a randomized cross-check in tests).
 # ---------------------------------------------------------------------------
-
-
-def small_batch_device(elements: int, threshold: int = 1_000_000):
-    """Device override for tiny batch programs: a watchlist scan's fusion math
-    is microseconds of VPU work — dispatching it to a remote accelerator
-    (and paying its first-compile) costs orders of magnitude more than the
-    host CPU backend. Returns the CPU device for small problems on non-CPU
-    defaults, else None (use the default device).
-
-    This is a PLACEMENT choice, not a bypass: the jitted
-    ``aggregate_batch`` program is still what scan/compare execute in
-    production (application/analyze.py::analyze_batch) — on the host CPU
-    backend below the threshold, on the accelerator above it. The same
-    compiled program serves both, so the device path is exercised by every
-    scan, not reserved for the >=1M-element case.
-
-    Use as ``with jax.default_device(d)`` when not None."""
-    if elements >= threshold:
-        return None
-    if jax.default_backend() == "cpu":
-        return None
-    try:
-        return jax.devices("cpu")[0]
-    except RuntimeError:
-        return None
 
 
 def pack_batch(inputs: Sequence[tuple]) -> tuple["BatchSignals", "BatchMarket"]:

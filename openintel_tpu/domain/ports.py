@@ -1,7 +1,7 @@
 """Ports: protocol classes at the host/ingest boundary.
 
 The reference defines five async trait ports so the pure core can be driven by
-hermetic fakes (reference: src/domain/ports/*.rs). In the TPU rebuild, ports
+hermetic fakes (reference: src/domain/ports/*.rs). In this rebuild, ports
 exist only at the host boundary — on-device there are no traits, only arrays.
 
 - SocialDataSource {kind, fetch(ticker, limit)} (src/domain/ports/social_data_source.rs:9-12)

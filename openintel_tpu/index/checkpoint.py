@@ -1,7 +1,7 @@
 """Index checkpointing: serialize built indexes to disk, mmap-reload.
 
 The reference is stateless by design (no persistence in v1 — SURVEY.md §5),
-but a TPU index build is long-running state worth checkpointing. Layout per
+but a large index build is long-running state worth checkpointing. Layout per
 checkpoint ``<base>``:
 
 - ``<base>.npz`` — postings CSR arrays + stats (a few hundred MB at 10M

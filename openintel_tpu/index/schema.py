@@ -1,6 +1,6 @@
 """Index schema: CSR postings over terms, dense embedding index, BM25 stats.
 
-TPU-first layout decisions:
+Device-first layout decisions:
 - postings are term-major CSR (term_offsets / doc_ids / tf), with doc ids
   ascending within each term — deterministic merges and monotonic scatters;
 - per-posting *impacts* (the length-normalised saturated tf) are precomputed at
@@ -8,7 +8,7 @@ TPU-first layout decisions:
   idf(t) * qtf * impact(t, d). This fuses the tf/idf saturation into the index,
   the Pallas-side analogue of BASELINE.json's "SpMV with tf/idf saturation
   fused in";
-- the dense index stores L2-normalised embeddings so cosine == dot (MXU), with
+- the dense index stores L2-normalised embeddings so cosine == dot (one matmul), with
   optional bfloat16 storage for HBM footprint.
 """
 

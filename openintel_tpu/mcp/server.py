@@ -190,7 +190,7 @@ TOOL_SPECS: list[dict[str, Any]] = [
 SEARCH_TOOL_SPEC: dict[str, Any] = {
     "name": "search_corpus",
     "description": (
-        "Hybrid retrieval (BM25 + dense cosine, reciprocal-rank fused on TPU) "
+        "Hybrid retrieval (BM25 + dense cosine, fused on the device) "
         "over the corpus this server was started with. Returns ranked doc ids, "
         "scores, and text snippets. Read-only."
     ),
@@ -636,8 +636,6 @@ def _load_retriever(
         except ValueError as e:
             # composition error, not a crash: serve()'s handler reports it
             raise RuntimeError(f"--mesh {mesh}: {e}") from e
-        from openintel_tpu.cli.main import sharded_kernel_name
-
         if updatable:
             # the sharded live corpus (parallel/updatable.py): the main
             # segment shards over the mesh, adds ride the delta, deletes
@@ -649,15 +647,14 @@ def _load_retriever(
             return (
                 ShardedUpdatableHybridRetriever(
                     postings, dense, embedder, data=data, corpus=corpus,
-                    kernel=sharded_kernel_name(kernel),
-                    doc_store=docs,
+                    kernel=kernel, doc_store=docs,
                 ),
                 None,
             )
         return (
             ShardedHybridRetriever(
                 postings, dense, embedder, data=data, corpus=corpus,
-                kernel=sharded_kernel_name(kernel),
+                kernel=kernel,
             ),
             docs,
         )

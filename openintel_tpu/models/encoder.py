@@ -1,4 +1,4 @@
-"""Neural text encoder: a compact, TPU-native transformer for dense retrieval
+"""Neural text encoder: a compact transformer for dense retrieval
 and learned post analysis.
 
 The reference's ``PostAnalyzer`` port is explicitly documented as "designed to

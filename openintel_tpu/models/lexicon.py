@@ -6,7 +6,7 @@ Semantics match the reference analyzer exactly
 BULL / BEAR / JARGON term lists; polarity = (bull - bear) / (bull + bear) or 0;
 speculative = any jargon hit.
 
-TPU-first design: instead of three per-token list scans, posts encode to a
+Device-first design: instead of three per-token list scans, posts encode to a
 padded ``(B, L)`` id matrix over a shared vocabulary and score as a single
 jitted table-gather + masked reduction — one device program for the whole
 batch. The term lists are the seed vocabulary, making sentiment scoring a

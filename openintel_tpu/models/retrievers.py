@@ -16,14 +16,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from openintel_tpu import platform
 from openintel_tpu.index.schema import BM25Config, DenseIndex, PostingsIndex
 from openintel_tpu.index.build import build_postings_index
 from openintel_tpu.models.embedding import HashingEmbedder
 from openintel_tpu.ops.bm25 import bm25_topk_device, build_query_plan, encode_query
 from openintel_tpu.ops.dense import (
-    dense_topk_masked_t,
     dense_topk_xla,
     dense_topk_xla_masked,
+    exact_rescore,
+    int8_corpus,
+    int8_group,
+    quantize_int8,
 )
 from openintel_tpu.ops.fusion import (
     BLEND_ALPHA,
@@ -67,12 +71,11 @@ class PreparedBatch:
 
 AUTO_PRUNE_DOCS = 100_000  # corpora above this default to pruned plans
 
-# Filtered search: cap on the dense arm's over-fetch width. 1024 is the
-# widest every kernel supports natively (dense_topk_pallas asserts
-# k <= block_c=1024; the turbo kernels capacity-clamp and -1-pad beyond
-# 128*slots per super). Below ~c/1024 selectivity the filtered program
-# expects starvation and the exact masked fallback takes over — at that
-# selectivity a masked brute-force scan IS the right algorithm anyway.
+# Filtered search: cap on the dense arm's over-fetch width (the int8
+# candidate pass -1-pads a width beyond its candidate buffer). Below ~c/1024
+# selectivity the filtered program expects starvation and the exact masked
+# fallback takes over — at that selectivity a masked brute-force scan IS
+# the right algorithm anyway.
 FILTER_FETCH_CAP = 1024
 
 
@@ -288,62 +291,26 @@ def dense_arm_topk(
     *,
     n_docs: int,
     interpret: bool,
-    block_c: int = 8192,
     candidates: Optional[int] = None,  # int8 candidate count (default 2k>=32)
     rescore_op: Optional[jax.Array] = None,  # (N, D) rows, kernel="int8"
     q8: Optional[jax.Array] = None,  # (B, D) int8 queries, kernel="int8"
 ) -> tuple[jax.Array, jax.Array]:
-    """THE single-chip dense-arm dispatch — shared by ``DenseRetriever``
-    and the fused hybrid program so kernel/interpret/block_c handling
-    cannot drift between the serving paths. Jit-traceable."""
+    """THE dense-arm dispatch — shared by ``DenseRetriever``, the fused
+    hybrid program and the per-shard sharded program, so the kernel and
+    its interpret flag cannot drift between the serving paths.
+    Jit-traceable. ``kernel="int8"``: the int8 candidate pass (the GPU
+    kernel; interpret mode on the CPU) over ``emb_op`` = the padded int8
+    rows, then an exact f32 rescore of the candidates over ``rescore_op``.
+    ``kernel="xla"``: the exact blocked scan over ``emb_op`` rows."""
     if kernel == "int8":
-        from openintel_tpu.ops.pallas.dense_topk import (
-            auto_i8_group,
-            dense_topk_fast_i8_grouped,
-            exact_rescore,
-        )
+        from openintel_tpu.ops.pallas.int8_topk import int8_topk
 
         c = candidates if candidates is not None else min(max(2 * k, 32), n_docs)
-        # grouped-reduction turbo kernel (round 4): same corpus stream and
-        # MXU volume as the per-super kernel, but the candidate fold keeps
-        # top-2 per (lane, group-of-supers) in-kernel so the reduction is
-        # one exact lax.top_k over ~2k columns instead of approx_max_k
-        # over 2*n_super*128 — the measured wall (60% of the candidate
-        # pass). On-chip A/B at bench scale: 1.3-1.45x faster dense arm
-        # at recall@10 = 1.0000 over 512 queries (the approx path's
-        # bucket losses are gone too). scripts/bench_grouped_ab.py.
-        _, cids = dense_topk_fast_i8_grouped(
-            emb_op, q8, k=c, block_c=block_c, n_docs=n_docs,
-            interpret=interpret, group=auto_i8_group(n_docs, c),
-        )
-        return exact_rescore(rescore_op, q, cids, k)
-    if kernel == "int4":
-        from openintel_tpu.ops.pallas.dense_topk import (
-            dense_topk_fast_i4,
-            exact_rescore,
-        )
-
-        # The coarser int4 quantiser needs a wider candidate fetch than the
-        # caller's RRF pool width before rescore recovers exact ordering
-        # (host sim + docs/kernels.md: recall@10-in-top-256 = 1.000 at 1M
-        # docs; `candidates` here means the POOL width, not the fetch)
-        cw = min(max(4 * (candidates or k), 256), n_docs)
-        _, cids = dense_topk_fast_i4(
-            emb_op, q8, k=cw, block_c=min(block_c, 4096), n_docs=n_docs,
+        _, cids = int8_topk(
+            emb_op, q8, k=c, n_docs=n_docs, group=int8_group(n_docs, c),
             interpret=interpret,
         )
         return exact_rescore(rescore_op, q, cids, k)
-    if kernel == "fast":
-        from openintel_tpu.ops.pallas.dense_topk import dense_topk_fast
-
-        return dense_topk_fast(
-            emb_op, q, k=k, block_c=block_c, n_docs=n_docs,
-            interpret=interpret,
-        )
-    if kernel == "pallas":
-        from openintel_tpu.ops.pallas.dense_topk import dense_topk_pallas
-
-        return dense_topk_pallas(emb_op, q, k=k, interpret=interpret)
     return dense_topk_xla(emb_op, q, k)
 
 
@@ -412,85 +379,28 @@ class BM25Retriever:
 
 
 class DenseRetriever:
-    """Brute-force cosine retrieval over the dense index (MXU matmul +
-    fused top-k; Pallas kernel on TPU, blocked XLA elsewhere)."""
+    """Brute-force cosine retrieval over the dense index: the exact XLA
+    scan, or the int8 candidate pass + exact rescore (``kernel="int8"``,
+    the platform default on a GPU at serving scale — ``platform.py``)."""
 
     def __init__(
         self,
         index: DenseIndex,
         embedder: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
         *,
-        use_pallas: Optional[bool] = None,
-        kernel: Optional[str] = None,  # "xla" | "pallas" | "fast" | "int8" | "int4" | None=auto
+        kernel: Optional[str] = None,  # "xla" | "int8" | None = platform default
     ):
         self.index = index
         self.embedder = embedder or HashingEmbedder(dim=index.dim)
-        if kernel is None:
-            if use_pallas is False:
-                kernel = "xla"
-            elif use_pallas is True:
-                kernel = "pallas"
-            elif jax.default_backend() in ("cpu",):
-                kernel = "xla"
-            elif index.n_docs >= AUTO_PRUNE_DOCS:
-                # Production default on TPU at serving scale: the int8 turbo
-                # candidate kernel + exact rescore — the config bench.py
-                # certifies (round-2 verdict: the served config must be the
-                # benchmarked config).
-                kernel = "int8"
-            else:
-                # Small corpora: the turbo kernels emit at most 128*slots
-                # candidates per 16,384-doc super (256 under the default
-                # slots=2 top-2 fold — docs with equal id mod 128 compete
-                # for a lane's slots), so few-super indexes cap the dense
-                # arm's candidate diversity; serve the exact Pallas kernel
-                # instead.
-                kernel = "pallas"
-        assert kernel in ("xla", "pallas", "fast", "int8", "int4"), kernel
-        self.kernel = kernel
-        self.use_pallas = kernel != "xla"
-        # Pallas kernels run in interpreter mode on CPU hosts (hermetic tests)
-        self._interpret = jax.default_backend() in ("cpu",)
-        # The fast kernels stream the transposed (D, N) layout (MXU-native
-        # stationary operand), block-padded so the hot path never copies the
-        # corpus. ALL transform work (quantise/transpose/pad) happens on the
-        # HOST numpy array with exactly ONE device upload per operand — a
-        # device-side quantise/transpose would round-trip the multi-GB
-        # corpus over the transfer path and briefly hold 2x the corpus in
-        # HBM. The int8 kernel additionally keeps the full-precision rows
-        # for the exact-rescore second stage.
+        self.kernel = platform.check_kernel(kernel, index.n_docs)
+        self._interpret = platform.interpret()
+        # All transform work (quantise/pad) happens on the HOST numpy array
+        # with exactly ONE device upload per operand: a device-side
+        # quantise would briefly hold 2x the corpus in device memory. The
+        # int8 path also keeps the stored rows for the exact rescore.
         emb_host = np.asarray(index.embeddings)
-        n, dim = emb_host.shape
-        if kernel == "fast":
-            from openintel_tpu.ops.pallas.dense_topk import _SUPER_COLS
-
-            n_pad = -(-max(n, _SUPER_COLS) // _SUPER_COLS) * _SUPER_COLS
-            padded = np.zeros((dim, n_pad), emb_host.dtype)
-            padded[:, :n] = emb_host.T
-            self._emb_device = jax.device_put(jnp.asarray(padded))
-        elif kernel == "int8":
-            from openintel_tpu.ops.pallas.dense_topk import (
-                _TURBO_UNIT,
-                quantize_int8,
-            )
-
-            n_pad = -(-max(n, _TURBO_UNIT) // _TURBO_UNIT) * _TURBO_UNIT
-            padded = np.zeros((dim, n_pad), np.int8)
-            padded[:, :n] = quantize_int8(emb_host).T
-            self._emb_device = jax.device_put(jnp.asarray(padded))
-            self._rescore_emb = jax.device_put(jnp.asarray(emb_host))
-        elif kernel == "int4":
-            # nibble-packed candidate corpus (HALF the int8 HBM stream) +
-            # full-precision rows for the exact-rescore second stage;
-            # pack_corpus_t_i4 pads to the turbo unit on the host
-            from openintel_tpu.ops.pallas.dense_topk import (
-                pack_corpus_t_i4,
-                quantize_int4,
-            )
-
-            self._emb_device = jax.device_put(
-                jnp.asarray(pack_corpus_t_i4(quantize_int4(emb_host).T))
-            )
+        if self.kernel == "int8":
+            self._emb_device = jax.device_put(int8_corpus(emb_host))
             self._rescore_emb = jax.device_put(jnp.asarray(emb_host))
         else:
             self._emb_device = jax.device_put(jnp.asarray(emb_host))
@@ -508,21 +418,10 @@ class DenseRetriever:
         emb = embedder(list(texts))
         return cls(DenseIndex.from_embeddings(emb, dtype=dtype), embedder)
 
-    def _fast_block_c(self, k: int = 128) -> int:
-        # turbo-style kernel: the candidate pool is 128 slots per 16,384-doc
-        # super regardless of block_c (which is just the grid-step width);
-        # 8192 is the measured sweet spot and divides the super
-        del k
-        return 8192
-
     def _topk(self, q: jax.Array, k: int):
         k = min(k, self.index.n_docs)
-        quantized = self.kernel in ("int8", "int4")
-        q8 = None
-        if quantized:
-            from openintel_tpu.ops.pallas.dense_topk import quantize_int8
-
-            q8 = jnp.asarray(quantize_int8(np.asarray(q, np.float32)))
+        int8 = self.kernel == "int8"
+        q8 = jnp.asarray(quantize_int8(np.asarray(q, np.float32))) if int8 else None
         return dense_arm_topk(
             self.kernel,
             self._emb_device,
@@ -530,26 +429,18 @@ class DenseRetriever:
             k,
             n_docs=self.index.n_docs,
             interpret=self._interpret,
-            block_c=self._fast_block_c(),
-            rescore_op=self._rescore_emb if quantized else None,
+            rescore_op=self._rescore_emb if int8 else None,
             q8=q8,
         )
 
     def _masked_topk(self, q: jax.Array, mask_dev: jax.Array, k: int):
-        """EXACT masked dense top-k over whichever corpus copy is resident:
-        the full-precision rescore rows for the quantised kernels (same
-        stored-dtype-doc x f32-query scores as exact_rescore), the
-        transposed streaming copy for kernel="fast", the row-major corpus
-        otherwise. Brute force — the filtered-search fallback arm, and the
-        whole dense arm for DenseRetriever filtered searches."""
+        """EXACT masked dense top-k over the stored rows (for int8, the
+        rescore rows: the same stored-dtype-doc x f32-query scores as
+        exact_rescore). Brute force — the filtered-search fallback arm, and
+        the whole dense arm for DenseRetriever filtered searches."""
         k = min(k, self.index.n_docs)
-        if self.kernel in ("int8", "int4"):
-            return dense_topk_xla_masked(self._rescore_emb, q, mask_dev, k)
-        if self.kernel == "fast":
-            return dense_topk_masked_t(
-                self._emb_device, q, mask_dev, k, n_docs=self.index.n_docs
-            )
-        return dense_topk_xla_masked(self._emb_device, q, mask_dev, k)
+        rows = self._rescore_emb if self.kernel == "int8" else self._emb_device
+        return dense_topk_xla_masked(rows, q, mask_dev, k)
 
     def search_embeddings(
         self,
@@ -559,13 +450,9 @@ class DenseRetriever:
         filter_mask=None,
         filter_group=None,
     ) -> SearchResult:
-        # int8/int4: f32 queries into the exact rescore (bf16-rounding the
+        # int8: f32 queries into the exact rescore (bf16-rounding the
         # query shifts near-ties — see HybridRetriever.prepare)
-        dtype = (
-            jnp.float32
-            if self.kernel in ("int8", "int4")
-            else self._emb_device.dtype
-        )
+        dtype = jnp.float32 if self.kernel == "int8" else self._emb_device.dtype
         q = jnp.asarray(query_emb, dtype)
         if filter_mask is not None:
             b = q.shape[0]
@@ -637,16 +524,13 @@ class HybridRetriever:
         rrf_k: float = RRF_K,
         fusion: str = "zblend",  # "zblend" (measured winner) | "rrf"
         blend_alpha: float = BLEND_ALPHA,
-        use_pallas: Optional[bool] = None,
-        kernel: Optional[str] = None,  # "xla" | "pallas" | "fast" | "int8" | "int4" | None=auto
+        kernel: Optional[str] = None,  # "xla" | "int8" | None = platform default
         device_batch: int = 256,
     ):
         if fusion not in ("rrf", "zblend"):
             raise ValueError(f"unknown fusion {fusion!r}")
         self.bm25 = BM25Retriever(postings)
-        self.dense = DenseRetriever(
-            dense, embedder, use_pallas=use_pallas, kernel=kernel
-        )
+        self.dense = DenseRetriever(dense, embedder, kernel=kernel)
         self.rrf_k = rrf_k
         self.fusion = fusion
         self.blend_alpha = blend_alpha
@@ -675,7 +559,6 @@ class HybridRetriever:
         rrf_k: float = RRF_K,
         fusion: str = "zblend",
         blend_alpha: float = BLEND_ALPHA,
-        use_pallas: Optional[bool] = None,
         kernel: Optional[str] = None,
         device_batch: int = 256,
     ):
@@ -684,8 +567,8 @@ class HybridRetriever:
         dense = DenseIndex.from_embeddings(embedder(list(texts)), dtype=dtype)
         return cls(
             postings, dense, embedder, rrf_k=rrf_k, fusion=fusion,
-            blend_alpha=blend_alpha, use_pallas=use_pallas,
-            kernel=kernel, device_batch=device_batch,
+            blend_alpha=blend_alpha, kernel=kernel,
+            device_batch=device_batch,
         )
 
     @property
@@ -694,7 +577,7 @@ class HybridRetriever:
 
     @property
     def kernel(self) -> str:
-        """The dense-arm kernel this instance serves ("int8" on TPU)."""
+        """The dense-arm path this instance serves ("xla" or "int8")."""
         return self.dense.kernel
 
     def _make_fused(self):
@@ -711,16 +594,16 @@ class HybridRetriever:
         @functools.partial(
             jax.jit,
             static_argnames=(
-                "k", "c", "n_docs", "presorted", "max_run", "block_c"
+                "k", "c", "n_docs", "presorted", "max_run"
             ),
         )
         def fused(emb_op, rescore_op, qbs, qbs8, dis, ws, *, k, c, n_docs,
-                  presorted, max_run, block_c):
+                  presorted, max_run):
             def body(carry, xs):
                 qb, qb8, di, w = xs
                 d_vals, d_ids = dense_arm_topk(
                     kernel, emb_op, qb, c,
-                    n_docs=n_docs, interpret=interpret, block_c=block_c,
+                    n_docs=n_docs, interpret=interpret,
                     candidates=c, rescore_op=rescore_op, q8=qb8,
                 )
                 b_vals, b_ids = bm25_topk_device(
@@ -760,11 +643,10 @@ class HybridRetriever:
             jax.jit,
             static_argnames=(
                 "k", "c", "c_fetch", "n_docs", "presorted", "max_run",
-                "block_c",
             ),
         )
         def fused(emb_op, rescore_op, mask_dev, gbs, qbs, qbs8, dis, ws, *,
-                  k, c, c_fetch, n_docs, presorted, max_run, block_c):
+                  k, c, c_fetch, n_docs, presorted, max_run):
             # (G, n_docs) masks flattened once; each query row gathers its
             # own mask row via flat index g * n_docs + doc_id (per-query
             # filters ride as ONE int per query, never a (B, n_docs) mask)
@@ -774,7 +656,7 @@ class HybridRetriever:
                 qb, qb8, gb, di, w = xs
                 d_vals, d_ids = dense_arm_topk(
                     kernel, emb_op, qb, c_fetch,
-                    n_docs=n_docs, interpret=interpret, block_c=block_c,
+                    n_docs=n_docs, interpret=interpret,
                     candidates=c_fetch, rescore_op=rescore_op, q8=qb8,
                 )
                 flat_ix = gb[:, None] * n_docs + jnp.maximum(d_ids, 0)
@@ -798,10 +680,6 @@ class HybridRetriever:
             return vals, ids, surv
 
         return fused
-
-    def _dense_block_c(self, db: int) -> int:
-        # measured optimum on v5e: 8192 at production batch, 4096 below
-        return 8192 if db >= 128 else 4096
 
     def search(
         self,
@@ -908,19 +786,16 @@ class HybridRetriever:
         dim = q.shape[1]
 
         dense = self.dense
-        if dense.kernel in ("int8", "int4"):
-            from openintel_tpu.ops.pallas.dense_topk import quantize_int8
-
+        if dense.kernel == "int8":
             qbs8 = jnp.asarray(quantize_int8(q).reshape(nb, db, dim))
             # rescore queries stay f32: rounding them to the (bf16) stored
-            # dtype shifts near-ties in the exact-rescore ordering — the
-            # measured dominant recall-loss mechanism at the top-10
-            # boundary (bench BENCH_RECALL_DEBUG, round 3). Score
-            # definition is bf16(doc) x f32(query), f32 accumulate —
-            # identical to the stored-index reference oracle.
+            # dtype shifts near-ties in the exact-rescore ordering at the
+            # top-10 boundary. Score definition is bf16(doc) x f32(query),
+            # f32 accumulate — identical to the stored-index reference
+            # oracle.
             qbs = jnp.asarray(q.reshape(nb, db, dim), jnp.float32)
         else:
-            # tiny placeholder, never read by the non-int8 fused body (a
+            # tiny placeholder, never read by the xla fused body (a
             # full-size zeros array would stage b*dim dead bytes per search)
             qbs8 = jnp.zeros((nb, db, 1), jnp.int8)
             qbs = jnp.asarray(q.reshape(nb, db, dim), dense._emb_device.dtype)
@@ -1008,10 +883,9 @@ class HybridRetriever:
         return the dense survivor counts as a third array (consumed by
         ``run_prepared``'s starvation check)."""
         dense = self.dense
-        db = prep.queries.shape[1]
         rescore_op = (
             dense._rescore_emb
-            if dense.kernel in ("int8", "int4")
+            if dense.kernel == "int8"
             else jnp.zeros((1, prep.queries.shape[2]), jnp.float32)
         )
         if prep.filter_mask is not None:
@@ -1030,7 +904,6 @@ class HybridRetriever:
                 n_docs=self.n_docs,
                 presorted=prep.presorted,
                 max_run=prep.max_run,
-                block_c=self._dense_block_c(db),
             )
         return self._fused(
             dense._emb_device,
@@ -1044,7 +917,6 @@ class HybridRetriever:
             n_docs=self.n_docs,
             presorted=prep.presorted,
             max_run=prep.max_run,
-            block_c=self._dense_block_c(db),
         )
 
     def _filtered_fallback(

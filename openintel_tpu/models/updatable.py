@@ -7,7 +7,7 @@ new documents become searchable immediately, deletions stop surfacing
 immediately, and neither forces re-staging the multi-GB device-resident
 index. This module is the classic main + delta + tombstones design
 (immutable big segment, small mutable segment, logical deletes), mapped
-TPU-first onto machinery this framework already has:
+device-first onto machinery this framework already has:
 
 - **Deletes are tombstones riding the filtered-search engine**
   (docs/specs/filtered-search.md): the alive mask composes (AND) with any
@@ -24,7 +24,7 @@ TPU-first onto machinery this framework already has:
   impacts and idf are stored separately).
 - **The merge is the sharded merge**: main and delta are searched as two
   unequal shards — per-arm top-c with scores, merged by (score desc,
-  doc asc) exactly like the cross-shard ICI merge, then RRF — so the
+  doc asc) exactly like the cross-shard merge, then RRF — so the
   combined ranking is IDENTICAL to a from-scratch index over
   main + delta with the same frozen statistics (`merge_postings` builds
   that oracle; asserted in tests/test_updatable.py).
@@ -297,17 +297,15 @@ class UpdatableHybridRetriever:
         return np.asarray(st.base.dense.index.embeddings, np.float32)
 
     def _main_query_dtype(self, st: "_Epoch"):
-        """ONE query dtype for both segments' dense arms — the quantised
-        kernels rescore with f32 queries, and a delta arm rounding its
-        queries differently would break cross-segment score comparability
-        at merge time (near-ties would order differently than the
-        combined-index oracle)."""
+        """ONE query dtype for both segments' dense arms — the int8 path
+        rescores with f32 queries, and a delta arm rounding its queries
+        differently would break cross-segment score comparability at merge
+        time (near-ties would order differently than the combined-index
+        oracle)."""
         dense_main = st.base.dense
-        return (
-            jnp.float32
-            if dense_main.kernel in ("int8", "int4")
-            else dense_main._emb_device.dtype
-        )
+        if dense_main.kernel == "int8":
+            return jnp.float32
+        return dense_main._emb_device.dtype
 
     def _main_bm25_ranked(
         self, st: "_Epoch", term_ids, c: int, masks_main, groups,

@@ -1,5 +1,5 @@
-"""Pallas TPU kernels — the native compute tier.
+"""Pallas GPU kernels (Triton route).
 
-Each kernel is validated against the pure-NumPy reference scorer and the XLA
-baseline in tests (interpret mode on CPU; compiled on real TPU via bench.py).
+Each kernel has a plain-XLA reference in :mod:`openintel_tpu.ops` that tests
+compare it with bit for bit; on the CPU the kernels run in interpret mode.
 """

@@ -1,7 +1,7 @@
 """Pure-NumPy reference scorers — the golden oracle for every device kernel.
 
 Device implementations (XLA and Pallas) are asserted equal to these in tests,
-the TPU analogue of the reference's canned-JSON parser-fixture discipline
+the analogue of the reference's canned-JSON parser-fixture discipline
 (SURVEY.md §4). Ranking order is defined here once: descending score, ties
 broken by ascending doc id.
 """

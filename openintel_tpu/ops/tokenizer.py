@@ -85,8 +85,8 @@ def encode_padded(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Encode token lists into a padded ``(B, L)`` id matrix plus validity mask.
 
-    L is the longest list rounded up to ``pad_multiple`` (TPU lane width) so the
-    arrays tile cleanly onto the VPU. Unknown tokens encode as PAD_ID but stay
+    L is the longest list rounded up to ``pad_multiple`` (a lane-friendly width) so the
+    arrays tile cleanly onto vector units. Unknown tokens encode as PAD_ID but stay
     *valid* (they count toward document length, like any un-scorable token).
     """
     ids = [vocab.encode(t) for t in token_lists]

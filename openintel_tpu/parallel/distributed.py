@@ -2,9 +2,10 @@
 
 The single-host mesh code (parallel.mesh / parallel.sharded) is already
 multi-host-shaped: a ("data", "corpus") mesh over ``jax.devices()`` spans
-hosts transparently once ``jax.distributed.initialize`` has run, with XLA
-routing intra-host collectives over ICI and cross-host ones over DCN
-(SURVEY.md §5 "distributed communication backend"). This module is the one
+hosts transparently once ``jax.distributed.initialize`` has run; XLA hands
+the collectives to NCCL, which joins the cards of one host all to all over
+NVLink and reaches other hosts over the network (SURVEY.md §5 "distributed
+communication backend"). This module is the one
 place that owns process-group bring-up; the CLI exposes it as
 ``--coordinator`` on the index/search/mcp subcommands.
 
@@ -20,8 +21,8 @@ virtual CPU devices each) join one process group through
 :func:`initialize_distributed`, and ``ShardedHybridRetriever`` serves all
 four modes over the cross-process 8-device mesh bit-identically to the
 single-process oracle. Flag plumbing / argument validation is covered in
-tests/test_distributed.py. No real multi-host TPU hardware exists here, so
-ICI-vs-DCN placement remains compiler-asserted rather than measured.
+tests/test_distributed.py. No multi-host run on real cards has been made, so
+the cost of the cross-host collectives is not measured.
 """
 
 from __future__ import annotations

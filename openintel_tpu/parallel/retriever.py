@@ -6,14 +6,14 @@ gives the multi-chip path the same treatment. It owns the full lifecycle:
 
 - load a saved index (postings + dense checkpoint, ``index.checkpoint``);
 - pad the corpus shard-even and lay it out over a ("data", "corpus")
-  mesh (``NamedSharding``; transposed (D, N) layout for the Pallas fast
-  kernel so the per-shard matmul is MXU-native);
+  mesh (``NamedSharding``, rows split over the corpus axis; the int8 path
+  pads each shard to whole candidate-pass supers);
 - per-query-batch host work: encode queries, build ONE global query plan
   (C++ planner fast path), split it at shard boundaries into per-shard
   local-id plans (:func:`shard_query_plans` — the single owner of that
   logic);
 - run the one-program sharded hybrid step (per-shard BM25 + dense top-c,
-  ICI all-gather, deterministic global merge, RRF) and post-filter the
+  all-gather, deterministic global merge, fusion) and post-filter the
   corpus padding.
 
 Cross-shard results are bit-identical to a single-chip run over the same
@@ -32,10 +32,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from openintel_tpu import platform
 from openintel_tpu.index.schema import DenseIndex, PostingsIndex
 from openintel_tpu.models.embedding import HashingEmbedder
 from openintel_tpu.models.retrievers import SearchResult
 from openintel_tpu.ops.bm25 import _bucket, build_query_plan, encode_query
+from openintel_tpu.ops.dense import SUPER_DOCS, int8_corpus, quantize_int8
 from openintel_tpu.ops.fusion import BLEND_ALPHA, RRF_K
 from openintel_tpu.parallel.mesh import CORPUS_AXIS, DATA_AXIS, make_mesh
 from openintel_tpu.parallel.sharded import (
@@ -194,14 +196,13 @@ class ShardedHybridRetriever:
         mesh=None,
         data: int = 1,
         corpus: Optional[int] = None,
-        kernel: Optional[str] = None,  # xla | pallas | pallas_fast | int8 | int4 | None=auto
+        kernel: Optional[str] = None,  # "xla" | "int8" | None = platform default
         rrf_k: float = RRF_K,
         fusion: str = "zblend",  # the single-chip default (measured A/B)
         blend_alpha: float = BLEND_ALPHA,
         block_size: int = 4096,
         max_postings_per_term: Optional[int] = None,
         multi_budget: int = 256,
-        interpret: Optional[bool] = None,  # None = auto (CPU hosts -> True)
         device_batch: int = 256,
     ):
         if mesh is None:
@@ -225,25 +226,7 @@ class ShardedHybridRetriever:
                 f"({dense.n_docs} docs) disagree — mismatched checkpoint pair"
             )
         self.embedder = embedder or HashingEmbedder(dim=dense.dim)
-        if kernel is None:
-            # same size-aware auto rule as models.retrievers.DenseRetriever:
-            # int8 turbo + rescore at serving scale, exact pallas below it
-            # (the turbo candidate structure — 128*slots candidates per
-            # 16,384-doc super, top-`slots` per lane — caps candidate
-            # diversity on small corpora)
-            from openintel_tpu.models.retrievers import AUTO_PRUNE_DOCS
-
-            if jax.default_backend() in ("cpu",):
-                kernel = "xla"
-            elif dense.n_docs >= AUTO_PRUNE_DOCS:
-                kernel = "int8"
-            else:
-                kernel = "pallas"
-        if kernel not in ("xla", "pallas", "pallas_fast", "int8", "int4"):
-            raise ValueError(
-                f"unknown kernel {kernel!r} (expected xla | pallas | "
-                "pallas_fast | int8 | int4)"
-            )
+        kernel = platform.check_kernel(kernel, dense.n_docs)
         self.kernel = kernel
         if fusion not in ("rrf", "zblend"):
             raise ValueError(f"unknown fusion {fusion!r}")
@@ -253,30 +236,11 @@ class ShardedHybridRetriever:
         self.block_size = block_size
         self.max_postings_per_term = max_postings_per_term
         self.multi_budget = multi_budget
-        # Pallas kernels need interpreter mode on CPU hosts; an explicit
-        # --kernel int8/pallas_fast on a CPU box would otherwise crash in
-        # Mosaic lowering instead of serving (round-3 review finding)
-        self.interpret = (
-            jax.default_backend() in ("cpu",) if interpret is None else interpret
-        )
         self.device_batch = max(1, device_batch)
 
-        # Shard-even corpus padding. The fast kernels prefer aligned shards
-        # so their block/super size divides the shard (no in-jit re-pad):
-        # 512 for pallas_fast, the 16,384-column turbo unit for int8/int4.
-        if kernel in ("int8", "int4"):
-            from openintel_tpu.ops.pallas.dense_topk import _TURBO_UNIT
-
-            align = self.n_shards * _TURBO_UNIT
-        elif kernel == "pallas_fast":
-            # dense_topk_fast consumes whole 16,384-column supers; a shard
-            # that is not super-aligned would re-pad (= copy) the corpus
-            # shard inside the jitted hot path on every query batch
-            from openintel_tpu.ops.pallas.dense_topk import _SUPER_COLS
-
-            align = self.n_shards * _SUPER_COLS
-        else:
-            align = self.n_shards
+        # Shard-even corpus padding; the int8 pass consumes whole supers,
+        # so its shards align to SUPER_DOCS (no in-jit re-pad of a shard).
+        align = self.n_shards * (SUPER_DOCS if kernel == "int8" else 1)
         emb = np.asarray(dense.embeddings)
         pad = (-self.n_docs) % align
         if pad:
@@ -284,48 +248,14 @@ class ShardedHybridRetriever:
                 [emb, np.zeros((pad, emb.shape[1]), emb.dtype)], axis=0
             )
         self.shard_size = emb.shape[0] // self.n_shards
+        rows = NamedSharding(self.mesh, P(CORPUS_AXIS, None))
         if kernel == "int8":
-            from openintel_tpu.ops.pallas.dense_topk import quantize_int8
-
-            # int8 transposed candidates + full-precision rows for the
-            # per-shard exact rescore, both corpus-sharded
-            self._emb = jax.device_put(
-                jnp.asarray(np.ascontiguousarray(quantize_int8(emb).T)),
-                NamedSharding(self.mesh, P(None, CORPUS_AXIS)),
-            )
-            self._rescore = jax.device_put(
-                jnp.asarray(emb),
-                NamedSharding(self.mesh, P(CORPUS_AXIS, None)),
-            )
-        elif kernel == "int4":
-            from openintel_tpu.ops.pallas.dense_topk import (
-                pack_corpus_t_i4,
-                quantize_int4,
-            )
-
-            # nibble-packed transposed candidates (two docs per byte
-            # column — emb is already turbo-unit aligned, so pack adds no
-            # further padding and byte columns shard evenly) +
-            # full-precision rows for the per-shard exact rescore
-            self._emb = jax.device_put(
-                jnp.asarray(pack_corpus_t_i4(quantize_int4(emb).T)),
-                NamedSharding(self.mesh, P(None, CORPUS_AXIS)),
-            )
-            self._rescore = jax.device_put(
-                jnp.asarray(emb),
-                NamedSharding(self.mesh, P(CORPUS_AXIS, None)),
-            )
-        elif kernel == "pallas_fast":
-            self._emb = jax.device_put(
-                jnp.asarray(np.ascontiguousarray(emb.T)),
-                NamedSharding(self.mesh, P(None, CORPUS_AXIS)),
-            )
-            self._rescore = None
+            # int8 candidate rows + stored rows for the per-shard exact
+            # rescore, both corpus-sharded
+            self._emb = jax.device_put(int8_corpus(emb), rows)
+            self._rescore = jax.device_put(jnp.asarray(emb), rows)
         else:
-            self._emb = jax.device_put(
-                jnp.asarray(emb),
-                NamedSharding(self.mesh, P(CORPUS_AXIS, None)),
-            )
+            self._emb = jax.device_put(jnp.asarray(emb), rows)
             self._rescore = None
 
     @classmethod
@@ -357,12 +287,9 @@ class ShardedHybridRetriever:
         return SearchResult(ids=ids.astype(np.int32), scores=vals.astype(np.float32))
 
     def _masked_dense_operand(self):
-        """(operand, transposed) for the exact masked dense scan: the f32
-        rescore rows for the quantised kernels, the resident corpus copy
-        otherwise (transposed for pallas_fast)."""
-        if self.kernel in ("int8", "int4"):
-            return self._rescore, False
-        return self._emb, self.kernel == "pallas_fast"
+        """The stored rows for the exact masked dense scan: the rescore
+        rows for the int8 path, the resident corpus otherwise."""
+        return self._rescore if self.kernel == "int8" else self._emb
 
     def _mask_row_dev(self, padded_masks: np.ndarray, g: int) -> jax.Array:
         """Stage ONE padded mask row corpus-sharded — the (N_pad,) operand
@@ -431,7 +358,6 @@ class ShardedHybridRetriever:
                 fusion=self.fusion, blend_alpha=self.blend_alpha,
                 block_size=self.block_size, kernel=self.kernel,
                 presorted=meta.presorted, max_run=meta.max_terms,
-                interpret=self.interpret,
                 rescore=self._rescore,
                 queries_i8=q8[lo : lo + db] if q8 is not None else None,
             ))
@@ -451,7 +377,7 @@ class ShardedHybridRetriever:
         if starved.size:
             from openintel_tpu.models.retrievers import run_per_group
 
-            op, transposed = self._masked_dense_operand()
+            op = self._masked_dense_operand()
 
             def arm(g, sub):
                 rows, r = self._pad_group_rows(starved[sub], db)
@@ -459,7 +385,7 @@ class ShardedHybridRetriever:
                     self.mesh, op, q[rows],
                     mask_dev[g],  # row slice of the resident device stack
                     c,
-                    transposed=transposed, block_size=self.block_size,
+                    block_size=self.block_size,
                 )
                 b_vals, b_ids = sharded_bm25_topk(
                     self.mesh,
@@ -571,15 +497,11 @@ class ShardedHybridRetriever:
                 q_np = np.concatenate(
                     [q_np, np.zeros((pad, q_np.shape[1]), np.float32)]
                 )
-            if self.kernel in ("int8", "int4"):
-                # every dense consumer runs the quantised kernel now: the
-                # hybrid program, the unfiltered arm, and the filtered
-                # over-fetch (only the masked starvation FALLBACK routes
-                # through the f32 rescore rows)
-                from openintel_tpu.ops.pallas.dense_topk import (
-                    quantize_int8,
-                )
-
+            if self.kernel == "int8":
+                # every dense consumer runs the int8 pass: the hybrid
+                # program, the unfiltered arm, and the filtered over-fetch
+                # (only the masked starvation FALLBACK routes through the
+                # stored rescore rows)
                 q8 = jnp.asarray(quantize_int8(q_np))
                 # f32 rescore queries: bf16-rounding the query shifts
                 # near-ties in the exact rescore (models/retrievers.py)
@@ -630,7 +552,6 @@ class ShardedHybridRetriever:
                 fusion=self.fusion, blend_alpha=self.blend_alpha,
                 block_size=self.block_size, kernel=self.kernel,
                 presorted=meta.presorted, max_run=meta.max_terms,
-                interpret=self.interpret,
                 rescore=self._rescore, queries_i8=q8s,
                 n_docs_true=self.n_docs,
             )
@@ -669,7 +590,6 @@ class ShardedHybridRetriever:
                 sharded_dense_topk(
                     self.mesh, self._emb, q[lo : lo + db], c_fetch,
                     block_size=self.block_size, kernel=self.kernel,
-                    interpret=self.interpret,
                     rescore=self._rescore,
                     queries_i8=q8[lo : lo + db] if q8 is not None else None,
                     n_docs_true=self.n_docs,
@@ -692,7 +612,7 @@ class ShardedHybridRetriever:
             starved = np.flatnonzero(surv < need)
             starved = starved[starved < b]  # padding rows never re-run
             if starved.size:
-                op, transposed = self._masked_dense_operand()
+                op = self._masked_dense_operand()
 
                 def arm(g, sub):
                     sel, r = self._pad_group_rows(starved[sub], db)
@@ -700,7 +620,6 @@ class ShardedHybridRetriever:
                     souts = [
                         sharded_dense_topk_masked(
                             self.mesh, op, q[sel[lo : lo + db]], mrow, k,
-                            transposed=transposed,
                             block_size=self.block_size,
                         )
                         for lo in range(0, sel.size, db)
@@ -721,7 +640,6 @@ class ShardedHybridRetriever:
                 sharded_dense_topk(
                     self.mesh, self._emb, q[lo : lo + db], k,
                     block_size=self.block_size, kernel=self.kernel,
-                    interpret=self.interpret,
                     rescore=self._rescore,
                     queries_i8=q8[lo : lo + db] if q8 is not None else None,
                     n_docs_true=self.n_docs,
@@ -750,7 +668,6 @@ class ShardedHybridRetriever:
                 fusion=self.fusion, blend_alpha=self.blend_alpha,
                 block_size=self.block_size, kernel=self.kernel,
                 presorted=meta.presorted, max_run=meta.max_terms,
-                interpret=self.interpret,
                 rescore=self._rescore, queries_i8=q8,
                 n_docs_true=self.n_docs,
             )
@@ -810,9 +727,7 @@ class ShardedHybridRetriever:
                 [q_np, np.zeros((pad, q_np.shape[1]), np.float32)]
             )
         q8 = None
-        if self.kernel in ("int8", "int4"):
-            from openintel_tpu.ops.pallas.dense_topk import quantize_int8
-
+        if self.kernel == "int8":
             q8 = jnp.asarray(quantize_int8(q_np))
             q = jnp.asarray(q_np, jnp.float32)
         else:
@@ -849,7 +764,6 @@ class ShardedHybridRetriever:
                 fusion=self.fusion, blend_alpha=self.blend_alpha,
                 block_size=self.block_size, kernel=self.kernel,
                 presorted=meta.presorted, max_run=meta.max_terms,
-                interpret=self.interpret,
                 rescore=self._rescore,
                 queries_i8=q8[lo : lo + db] if q8 is not None else None,
                 n_docs_true=self.n_docs,

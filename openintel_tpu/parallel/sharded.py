@@ -1,10 +1,11 @@
-"""Sharded retrieval: per-shard top-k + ICI all-gather merge.
+"""Sharded retrieval: per-shard top-k + all-gather merge.
 
 The corpus shards evenly over the "corpus" mesh axis; query batches shard over
-"data". Each chip scores only its local documents (dense matmul and/or BM25
-scatter), computes a local top-k, converts to global doc ids, and the k-sized
-candidate lists all-gather over ICI (k << shard size, so the collective moves
-bytes-per-query, not the corpus). The merge is deterministic: candidates
+"data". Each device scores only its local documents (dense matmul and/or BM25
+reduction), computes a local top-k, converts to global doc ids, and the
+k-sized candidate lists all-gather (k << shard size, so the collective moves
+bytes-per-query, not the corpus; XLA hands it to NCCL, over NVLink between
+the cards of one host). The merge is deterministic: candidates
 arrive ordered (shard, local rank) = ascending doc id on ties, and
 ``lax.top_k`` keeps the first occurrence — so the cross-shard result is
 bit-identical to a single-shard run over the whole corpus (SURVEY.md hard
@@ -23,6 +24,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from openintel_tpu import platform
 from openintel_tpu.ops.dense import dense_topk_xla
 from openintel_tpu.ops.fusion import (
     BLEND_ALPHA,
@@ -50,80 +52,40 @@ def _local_dense_topk(
     emb_local, q_local, k, kernel, block_size, interpret=False,
     rescore_local=None, q_i8_local=None, candidates=None,
 ):
-    """Per-shard dense arm. ``kernel``: "xla" (portable), "pallas" (exact
-    fused top-k), "pallas_fast" (bf16 candidate-emission kernel; takes the
-    (D, N_local) transposed layout), "int8" / "int4" (turbo quantised
-    candidates + exact per-shard f32 rescore over ``rescore_local`` rows;
-    also take ``q_i8_local`` quantised queries — int4 additionally stores
-    the shard nibble-packed, two docs per byte column). ``interpret`` runs
-    the Pallas kernels in interpreter mode (hermetic CPU-mesh tests)."""
+    """Per-shard dense arm: the exact scan in ``block_size`` blocks for
+    ``kernel="xla"``; for ``kernel="int8"`` THE dense-arm dispatch
+    (models.retrievers.dense_arm_topk), so kernel and interpret handling
+    cannot drift between the single-device and sharded serving paths.
+    ``emb_local`` is then the shard's int8 rows in whole supers, and the
+    rescore runs LOCALLY over ``rescore_local`` (ids are shard-local), so
+    the all-gathered candidates already carry exact f32 scores."""
     if kernel == "xla":
         return dense_topk_xla(emb_local, q_local, k, block_size)
-    # Delegate to THE single-chip dense-arm dispatch (models.retrievers.
-    # dense_arm_topk) so kernel/interpret/capacity handling cannot drift
-    # between the single-chip and sharded serving paths. For "int8"/"int4"
-    # the rescore runs LOCALLY (ids are shard-local; rows are the local
-    # shard) so the all-gathered candidates already carry exact f32 scores.
     from openintel_tpu.models.retrievers import dense_arm_topk
 
-    transposed = kernel in ("pallas_fast", "int8", "int4")
-    n_local = emb_local.shape[1] if transposed else emb_local.shape[0]
-    if kernel == "int4":
-        n_local *= 2  # nibble-packed: two docs per byte column
     return dense_arm_topk(
-        "fast" if kernel == "pallas_fast" else kernel,
+        kernel,
         emb_local,
         q_local,
         k,
-        n_docs=n_local,
+        n_docs=emb_local.shape[0],
         interpret=interpret,
-        block_c=_fast_block_c(n_local),
-        # None -> single-chip default quantised over-fetch; the hybrid
-        # program passes candidates=c to match the single-chip fused
-        # hybrid exactly
-        candidates=candidates if kernel in ("int8", "int4") else None,
+        # None -> the single-device default over-fetch; the hybrid program
+        # passes candidates=c to match the single-device fused hybrid
+        candidates=candidates,
         rescore_op=rescore_local,
         q8=q_i8_local,
     )
 
 
-def _fast_block_c(n_local: int) -> int:
-    """Grid-step width for the turbo-style fast kernel: must divide the
-    16,384-column super unit. 8192 is the measured sweet spot; shards not
-    super-aligned pay an in-jit pad (the serving component aligns its
-    shards to n_shards * _SUPER_COLS so this never fires in production)."""
-    del n_local
-    return 8192
-
-
-def _emb_spec(kernel: str):
-    """Sharding spec for the dense index: (N, D) row-sharded normally; the
-    fast kernels stream the transposed (D, N) layout, column-sharded
-    (int4: (D, N/2) byte columns, still column-sharded)."""
-    if kernel in ("pallas_fast", "int8", "int4"):
-        return P(None, CORPUS_AXIS)
-    return P(CORPUS_AXIS, None)
-
-
-def _dense_n_docs(doc_emb, kernel: str) -> int:
-    if kernel == "int4":
-        return 2 * doc_emb.shape[1]  # nibble-packed byte columns
-    return (
-        doc_emb.shape[1]
-        if kernel in ("pallas_fast", "int8")
-        else doc_emb.shape[0]
-    )
-
-
 def sharded_dense_topk(
     mesh: Mesh,
-    doc_emb: jax.Array,  # (N, D) — or (D, N) when kernel="pallas_fast"/"int8"
+    doc_emb: jax.Array,  # (N, D) rows; int8 in whole supers for kernel="int8"
     queries: jax.Array,  # (B, D), B divisible by the data axis size
     k: int,
     *,
     block_size: int = 4096,
     kernel: str = "xla",
-    interpret: bool = False,
     rescore: Optional[jax.Array] = None,  # (N, D) rows, kernel="int8"
     queries_i8: Optional[jax.Array] = None,  # (B, D) int8, kernel="int8"
     n_docs_true: Optional[int] = None,  # pre-padding corpus size
@@ -135,18 +97,18 @@ def sharded_dense_topk(
     negative scores and displace them from the per-shard top-k — the
     single-chip kernels mask these via their own ``n_docs`` argument, and
     the sharded program must match (single-chip parity)."""
-    n_docs = _dense_n_docs(doc_emb, kernel)
+    n_docs = doc_emb.shape[0]
     n_shards = mesh.shape[CORPUS_AXIS]
     assert n_docs % n_shards == 0, "pad the corpus to shard evenly"
     shard_size = n_docs // n_shards
-    if kernel in ("int8", "int4"):
+    if kernel == "int8":
         assert rescore is not None and queries_i8 is not None
     else:
         # uniform shard_map signature: tiny unused operands
         rescore = jnp.zeros((n_shards, queries.shape[1]), queries.dtype)
         queries_i8 = jnp.zeros(queries.shape, jnp.int8)
     f = _dense_program(
-        mesh, shard_size, k, kernel, block_size, interpret,
+        mesh, shard_size, k, kernel, block_size, platform.interpret(),
         n_docs if n_docs_true is None else n_docs_true,
     )
     return f(doc_emb, queries, rescore, queries_i8)
@@ -183,7 +145,7 @@ def _dense_program(
             local,
             mesh=mesh,
             in_specs=(
-                _emb_spec(kernel),
+                P(CORPUS_AXIS, None),
                 P(DATA_AXIS, None),
                 P(CORPUS_AXIS, None),
                 P(DATA_AXIS, None),
@@ -254,7 +216,7 @@ def _fuse_device(fusion, b_vals, b_top, d_vals, d_top, k, rrf_k, alpha):
 
 def sharded_hybrid_topk(
     mesh: Mesh,
-    doc_emb: jax.Array,  # (N, D) corpus-sharded — (D, N) for kernel="pallas_fast"
+    doc_emb: jax.Array,  # (N, D) corpus-sharded rows
     queries: jax.Array,  # (B, D) query embeddings
     plan_doc_ids: jax.Array,  # (S, B, Pw) per-shard BM25 plans
     plan_weights: jax.Array,  # (S, B, Pw)
@@ -268,14 +230,13 @@ def sharded_hybrid_topk(
     kernel: str = "xla",
     presorted: bool = False,
     max_run: int = 0,
-    interpret: bool = False,
     rescore: Optional[jax.Array] = None,  # (N, D) rows, kernel="int8"
     queries_i8: Optional[jax.Array] = None,  # (B, D) int8, kernel="int8"
     n_docs_true: Optional[int] = None,  # pre-padding corpus size
     return_arms: bool = False,
 ) -> tuple[jax.Array, ...]:
     """Full hybrid query step, one device program: per-shard BM25 + dense
-    local top-c, ICI all-gather, global merges, RRF fusion, final top-k.
+    local top-c, all-gather, global merges, fusion, final top-k.
 
     ``return_arms`` additionally emits the globally-merged per-arm
     rankings the fusion consumed — (fused_vals, fused_ids, bm25_vals,
@@ -284,18 +245,18 @@ def sharded_hybrid_topk(
     them with its delta arms, paying ONE corpus-wide dispatch instead of
     two (parallel/updatable.py)."""
     c = candidates_per_arm or k
-    n_docs = _dense_n_docs(doc_emb, kernel)
+    n_docs = doc_emb.shape[0]
     n_shards = mesh.shape[CORPUS_AXIS]
     assert n_docs % n_shards == 0
     shard_size = n_docs // n_shards
-    if kernel in ("int8", "int4"):
+    if kernel == "int8":
         assert rescore is not None and queries_i8 is not None
     else:
         rescore = jnp.zeros((n_shards, queries.shape[1]), queries.dtype)
         queries_i8 = jnp.zeros(queries.shape, jnp.int8)
     f = _hybrid_program(
         mesh, shard_size, k, c, float(rrf_k), block_size, kernel,
-        presorted, max_run, interpret,
+        presorted, max_run, platform.interpret(),
         n_docs if n_docs_true is None else n_docs_true,
         return_arms, fusion, float(blend_alpha),
     )
@@ -331,7 +292,7 @@ def _hybrid_program(
         )
         b_gids = jnp.where(b_lids >= 0, b_lids + shard * shard_size, -1)
         b_vals = jnp.where(b_lids >= 0, b_vals, -jnp.inf)
-        # ICI all-gather of k-sized candidate lists, then global merges
+        # all-gather of the c-sized candidate lists, then global merges
         d_vals_g = jax.lax.all_gather(d_vals, CORPUS_AXIS)
         d_ids_g = jax.lax.all_gather(d_gids, CORPUS_AXIS)
         b_vals_g = jax.lax.all_gather(b_vals, CORPUS_AXIS)
@@ -356,7 +317,7 @@ def _hybrid_program(
             local,
             mesh=mesh,
             in_specs=(
-                _emb_spec(kernel),
+                P(CORPUS_AXIS, None),
                 P(DATA_AXIS, None),
                 P(CORPUS_AXIS, DATA_AXIS, None),
                 P(CORPUS_AXIS, DATA_AXIS, None),
@@ -385,7 +346,6 @@ def sharded_hybrid_topk_scan(
     kernel: str = "xla",
     presorted: bool = False,
     max_run: int = 0,
-    interpret: bool = False,
     rescore: Optional[jax.Array] = None,
     queries_i8: Optional[jax.Array] = None,  # (nb, B, D) int8
     n_docs_true: Optional[int] = None,  # pre-padding corpus size
@@ -395,18 +355,18 @@ def sharded_hybrid_topk_scan(
     analogue of ``HybridRetriever.run_prepared`` — large requests pay one
     dispatch round-trip, not one per sub-batch). Returns (nb, B, k)."""
     c = candidates_per_arm or k
-    n_docs = _dense_n_docs(doc_emb, kernel)
+    n_docs = doc_emb.shape[0]
     n_shards = mesh.shape[CORPUS_AXIS]
     assert n_docs % n_shards == 0
     shard_size = n_docs // n_shards
-    if kernel in ("int8", "int4"):
+    if kernel == "int8":
         assert rescore is not None and queries_i8 is not None
     else:
         rescore = jnp.zeros((n_shards, queries.shape[2]), queries.dtype)
         queries_i8 = jnp.zeros(queries.shape, jnp.int8)
     f = _hybrid_scan_program(
         mesh, shard_size, k, c, float(rrf_k), block_size, kernel,
-        presorted, max_run, interpret,
+        presorted, max_run, platform.interpret(),
         n_docs if n_docs_true is None else n_docs_true,
         fusion, float(blend_alpha),
     )
@@ -457,7 +417,6 @@ def sharded_hybrid_filtered_topk(
     kernel: str = "xla",
     presorted: bool = False,
     max_run: int = 0,
-    interpret: bool = False,
     rescore: Optional[jax.Array] = None,
     queries_i8: Optional[jax.Array] = None,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
@@ -483,18 +442,18 @@ def sharded_hybrid_filtered_topk(
     :func:`sharded_dense_topk_masked` + the mask-aware BM25 arm."""
     c = candidates_per_arm or k
     cf = c_fetch or c
-    n_docs = _dense_n_docs(doc_emb, kernel)
+    n_docs = doc_emb.shape[0]
     n_shards = mesh.shape[CORPUS_AXIS]
     assert n_docs % n_shards == 0
     shard_size = n_docs // n_shards
-    if kernel in ("int8", "int4"):
+    if kernel == "int8":
         assert rescore is not None and queries_i8 is not None
     else:
         rescore = jnp.zeros((n_shards, queries.shape[1]), queries.dtype)
         queries_i8 = jnp.zeros(queries.shape, jnp.int8)
     f = _hybrid_filtered_program(
         mesh, shard_size, k, c, cf, float(rrf_k), block_size, kernel,
-        presorted, max_run, interpret, fusion, float(blend_alpha),
+        presorted, max_run, platform.interpret(), fusion, float(blend_alpha),
     )
     return f(
         doc_emb, queries, groups, plan_doc_ids, plan_weights, rescore,
@@ -547,7 +506,7 @@ def _hybrid_filtered_program(
             local,
             mesh=mesh,
             in_specs=(
-                _emb_spec(kernel),
+                P(CORPUS_AXIS, None),
                 P(DATA_AXIS, None),
                 P(DATA_AXIS),
                 P(CORPUS_AXIS, DATA_AXIS, None),
@@ -568,45 +527,36 @@ def _hybrid_filtered_program(
 
 def sharded_dense_topk_masked(
     mesh: Mesh,
-    doc_op: jax.Array,  # (N, D) rows — or (D, N) when transposed=True
+    doc_op: jax.Array,  # (N, D) stored-precision rows
     queries: jax.Array,  # (B, D) f32
     doc_mask: jax.Array,  # (N_padded,) bool, corpus-sharded
     k: int,
     *,
-    transposed: bool = False,
     block_size: int = 4096,
 ) -> tuple[jax.Array, jax.Array]:
     """EXACT masked brute-force dense top-k over the sharded corpus — the
     starved-query fallback arm of the filtered sharded hybrid. Each shard
     scans its full local slice with the mask applied in-block
-    (``dense_topk_xla_masked`` / ``dense_topk_masked_t``), then the
-    k-sized survivor lists all-gather and merge. For the quantised kernels
-    pass the f32 rescore rows as ``doc_op`` (same stored-doc x f32-query
-    scores as the rescore stage). (0.0, -1) padding contract."""
-    n_docs = doc_op.shape[1] if transposed else doc_op.shape[0]
+    (``dense_topk_xla_masked``), then the k-sized survivor lists
+    all-gather and merge. For the int8 path pass the rescore rows as
+    ``doc_op`` (same stored-doc x f32-query scores as the rescore stage).
+    (0.0, -1) padding contract."""
+    n_docs = doc_op.shape[0]
     n_shards = mesh.shape[CORPUS_AXIS]
     assert n_docs % n_shards == 0
-    f = _dense_masked_program(
-        mesh, n_docs // n_shards, k, transposed, block_size
-    )
+    f = _dense_masked_program(mesh, n_docs // n_shards, k, block_size)
     return f(doc_op, queries, doc_mask)
 
 
 @functools.lru_cache(maxsize=64)
-def _dense_masked_program(mesh, shard_size, k, transposed, block_size):
-    from openintel_tpu.ops.dense import dense_topk_masked_t, dense_topk_xla_masked
+def _dense_masked_program(mesh, shard_size, k, block_size):
+    from openintel_tpu.ops.dense import dense_topk_xla_masked
 
     def local(op_local, q_local, mask_local):
         shard = jax.lax.axis_index(CORPUS_AXIS)
-        if transposed:
-            vals, ids = dense_topk_masked_t(
-                op_local, q_local, mask_local, k,
-                n_docs=shard_size, block_size=block_size,
-            )
-        else:
-            vals, ids = dense_topk_xla_masked(
-                op_local, q_local, mask_local, k, block_size
-            )
+        vals, ids = dense_topk_xla_masked(
+            op_local, q_local, mask_local, k, block_size
+        )
         gids = jnp.where(ids >= 0, ids + shard * shard_size, -1)
         vals = jnp.where(ids >= 0, vals, -jnp.inf)
         vals_g = jax.lax.all_gather(vals, CORPUS_AXIS)
@@ -620,7 +570,7 @@ def _dense_masked_program(mesh, shard_size, k, transposed, block_size):
             local,
             mesh=mesh,
             in_specs=(
-                P(None, CORPUS_AXIS) if transposed else P(CORPUS_AXIS, None),
+                P(CORPUS_AXIS, None),
                 P(DATA_AXIS, None),
                 P(CORPUS_AXIS),
             ),

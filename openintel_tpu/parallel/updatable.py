@@ -21,7 +21,7 @@ the five ``_main_*`` hooks:
   sharded scan as the starvation fallback) rather than a full masked
   rescan — the property that makes mesh-scale tombstones affordable.
 - **Delta**: unchanged — small single-device exact segment, merged with
-  the main arm by (score desc, doc asc) exactly like the cross-shard ICI
+  the main arm by (score desc, doc asc) exactly like the cross-shard
   merge, so results stay bit-identical to the combined-index oracle.
 - **Compaction**: ``compact_in_place`` folds everything into one fresh
   segment and re-stages it over the SAME mesh in one epoch swap;
@@ -76,7 +76,6 @@ class ShardedUpdatableHybridRetriever(UpdatableHybridRetriever):
         block_size: int = 4096,
         max_postings_per_term: Optional[int] = None,
         multi_budget: int = 256,
-        interpret: Optional[bool] = None,
     ):
         # mesh config must exist before super().__init__ builds the base;
         # after the first base is staged, every rebuild (compaction)
@@ -84,7 +83,7 @@ class ShardedUpdatableHybridRetriever(UpdatableHybridRetriever):
         self._mesh_cfg = dict(
             mesh=mesh, data=data, corpus=corpus, block_size=block_size,
             max_postings_per_term=max_postings_per_term,
-            multi_budget=multi_budget, interpret=interpret,
+            multi_budget=multi_budget,
         )
         super().__init__(
             postings, dense, embedder,
@@ -112,7 +111,7 @@ class ShardedUpdatableHybridRetriever(UpdatableHybridRetriever):
             block_size=cfg["block_size"],
             max_postings_per_term=cfg["max_postings_per_term"],
             multi_budget=cfg["multi_budget"],
-            interpret=cfg["interpret"], device_batch=device_batch,
+            device_batch=device_batch,
         )
         cfg["mesh"] = base.mesh
         return base
@@ -130,11 +129,7 @@ class ShardedUpdatableHybridRetriever(UpdatableHybridRetriever):
         return st.base.dense_index
 
     def _main_query_dtype(self, st: _Epoch):
-        return (
-            jnp.float32
-            if st.base.kernel in ("int8", "int4")
-            else st.base._emb.dtype
-        )
+        return jnp.float32 if st.base.kernel == "int8" else st.base._emb.dtype
 
     def _chunk_size(self, st: _Epoch, b: int) -> int:
         # every chunk dispatches through the mesh programs, whose batch

@@ -11,9 +11,8 @@ channel (see domain/engine.py) and adds what a device framework needs:
 - :func:`trace_annotation` — name a region so device ops group under it in
   the trace viewer;
 - :class:`DeviceTimer` — wall-clock device timing with a real host sync per
-  sample. ``jax.block_until_ready`` alone is NOT a reliable fence through
-  remote-device transports; the timer forces a device->host transfer of one
-  scalar, which is.
+  sample: the timer forces a device->host transfer of one scalar, a fence
+  that holds on every backend.
 """
 
 from __future__ import annotations

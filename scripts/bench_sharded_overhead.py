@@ -15,10 +15,9 @@ Three measurements over the SAME 262k-doc corpus, batch 64, c=32:
 
 `overhead_ratio` = t_sharded / t_single. The matmul probe's ratio (~0.8-1x)
 shows shard_map adds nothing by itself; the hybrid delta is the merge/fusion
-structure. On a real v5e pod the all-gathered bytes (S*B*c*8 per arm per
-batch — ids int32 + scores f32) ride ICI in microseconds, so the structural
-term measured here is the dominant sharding cost and bounds the deviation
-from "linear in shard size".
+structure. Across real devices the all-gathered bytes (S*B*c*8 per arm per
+batch — ids int32 + scores f32) are a few hundred kilobytes, so the
+structural term measured here is expected to dominate the sharding cost.
 
 Results are recorded in docs/benchmarks.md ("Sharded overhead").
 

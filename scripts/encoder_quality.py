@@ -68,7 +68,7 @@ def main() -> None:
     ap.add_argument(
         "--platform", choices=("cpu", "native"), default="cpu",
         help="'cpu' pins the hermetic CPU platform (default); 'native' "
-        "keeps the environment's backend (the real TPU where available — "
+        "keeps the environment's backend (a GPU where available — "
         "training and corpus embedding run ~orders faster there)",
     )
     ap.add_argument(

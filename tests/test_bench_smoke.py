@@ -55,43 +55,3 @@ def test_bench_emits_contracted_json():
     assert doc["value"] <= doc["value_net_rtt"] + 1e-6
     assert doc["served_surface"] == "HybridRetriever.run_prepared"
     assert 0.9 <= doc["recall_at_10_vs_exact"] <= 1.0
-
-
-def test_bench_retry_classifier():
-    """_main_with_retry retries exactly once on transient tunnel errors and
-    re-raises everything else immediately."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import bench
-
-    calls = {"n": 0}
-
-    def flaky():
-        calls["n"] += 1
-        if calls["n"] == 1:
-            raise RuntimeError(
-                "UNAVAILABLE: http://127.0.0.1:8083/remote_compile: "
-                "transport: Connection Failed: Connection refused"
-            )
-
-    real_main, real_sleep = bench.main, bench.time.sleep
-    bench.main = flaky
-    bench.time.sleep = lambda s: None
-    try:
-        bench._main_with_retry()
-        assert calls["n"] == 2
-
-        calls["n"] = 0
-
-        def hard():
-            calls["n"] += 1
-            raise ValueError("a real bug, not the tunnel")
-
-        bench.main = hard
-        try:
-            bench._main_with_retry()
-            raise AssertionError("expected ValueError")
-        except ValueError:
-            pass
-        assert calls["n"] == 1
-    finally:
-        bench.main, bench.time.sleep = real_main, real_sleep

@@ -154,7 +154,7 @@ def test_load_dense_rejects_mismatched_matrix(tmp_path):
 
 
 def test_dense_retriever_int8_kernel_matches_xla():
-    """kernel="int8" (turbo candidates + exact rescore) must agree with the
+    """kernel="int8" (int8 candidates + exact rescore) must agree with the
     exact XLA path on ids for a well-separated corpus."""
     import numpy as np
 

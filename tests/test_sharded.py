@@ -145,26 +145,33 @@ def test_sharded_hybrid_matches_reference():
 
 
 def test_sharded_hybrid_production_kernel_interpret():
-    """The PRODUCTION multi-chip program — pallas_fast dense kernel +
-    presorted bounded-run BM25 — on the virtual mesh (interpreter mode)."""
+    """The served multi-device program — int8 candidate pass + per-shard
+    rescore + presorted bounded-run BM25 — on the virtual mesh
+    (interpreter mode). Shards pad to whole supers, as the serving
+    component lays them out."""
+    from openintel_tpu.ops.dense import SUPER_DOCS, int8_corpus, quantize_int8
+
     docs, global_idx, shard_indexes, shard_size = _sharded_corpus()
     emb = synthetic_embeddings(N, dim=D, seed=14)
     queries = synthetic_queries_from_docs(docs, B, seed=15)
     term_ids = [encode_query(global_idx, q) for q in queries]
     q_emb, _ = synthetic_query_embeddings(emb, B, seed=16)
 
+    emb_pad = np.zeros((8 * SUPER_DOCS, D), np.float32)
+    emb_pad[:N] = emb
     pdi, pw, meta = shard_query_plans(
-        global_idx, term_ids, 8, shard_size=shard_size
+        global_idx, term_ids, 8, shard_size=SUPER_DOCS
     )
 
     mesh = make_mesh(data=1, corpus=8)
     vals, ids = sharded_hybrid_topk(
-        mesh, emb.T.copy(), q_emb, pdi, pw, K,
-        candidates_per_arm=2 * K,
-        kernel="pallas_fast", presorted=meta.presorted, max_run=meta.max_terms,
-        interpret=True,
+        mesh, int8_corpus(emb_pad), q_emb, pdi, pw, K,
+        candidates_per_arm=2 * K, kernel="int8",
+        presorted=meta.presorted, max_run=meta.max_terms,
+        rescore=emb_pad, queries_i8=quantize_int8(q_emb), n_docs_true=N,
     )
-    # pallas_fast is approximate (packing groups); compare by recall
+    assert np.asarray(ids).max() < N
+    # the int8 candidate pass is approximate; compare by recall
     recs = []
     for b, tids in enumerate(term_ids):
         _, ri = ref.hybrid_topk(

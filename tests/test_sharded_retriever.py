@@ -52,7 +52,7 @@ def test_hybrid_matches_single_chip(corpus, sharded):
     docs, postings, dense, embedder = corpus
     queries = synthetic_queries_from_docs(docs, 5, seed=3)  # 5 % data(2) != 0
     got = sharded.search(queries, k=10, candidates_per_arm=20)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -72,7 +72,7 @@ def test_dense_mode_matches_single_chip(corpus, sharded):
     docs, _, dense, embedder = corpus
     queries = synthetic_queries_from_docs(docs, 6, seed=8)
     got = sharded.search(queries, k=10, mode="dense")
-    want = DenseRetriever(dense, embedder, use_pallas=False).search(
+    want = DenseRetriever(dense, embedder, kernel="xla").search(
         queries, k=10
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -103,7 +103,7 @@ def test_load_roundtrip(tmp_path, corpus):
     )
     queries = synthetic_queries_from_docs(docs, 4, seed=11)
     got = sr.search(queries, k=5)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=5, candidates_per_arm=5
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -118,7 +118,7 @@ def test_single_device_mesh_degenerates(corpus):
     )
     queries = synthetic_queries_from_docs(docs, 3, seed=12)
     got = sr.search(queries, k=10, candidates_per_arm=20)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -241,16 +241,15 @@ def test_empty_and_mismatch_guards(corpus):
 
 
 def test_int8_kernel_sharded_hybrid_and_dense(corpus):
-    """The production int8 path (turbo candidates + per-shard exact rescore)
+    """The served int8 path (int8 candidates + per-shard exact rescore)
     through the sharded component: near-exact vs single-chip (the candidate
     pass is approximate by design; rescore restores exact scoring)."""
     docs, postings, dense, embedder = corpus
     sr = ShardedHybridRetriever(
         postings, dense, embedder, data=2, corpus=4, kernel="int8",
-        interpret=True,
     )
     queries = synthetic_queries_from_docs(docs, 5, seed=23)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20
     )
     got = sr.search(queries, k=10, candidates_per_arm=20)
@@ -263,7 +262,7 @@ def test_int8_kernel_sharded_hybrid_and_dense(corpus):
     assert got.ids.max() < N  # corpus padding (1000 -> 65536) never surfaces
 
     got_d = sr.search(queries, k=10, mode="dense")
-    want_d = DenseRetriever(dense, embedder, use_pallas=False).search(
+    want_d = DenseRetriever(dense, embedder, kernel="xla").search(
         queries, k=10
     )
     rec_d = np.mean([
@@ -339,21 +338,22 @@ def test_scan_path_matches_per_batch(corpus):
 
 
 def test_explicit_int8_kernel_auto_interprets_on_cpu(corpus):
-    """kernel='int8' WITHOUT interpret= must auto-detect the CPU host and
-    run the Pallas kernels in interpreter mode instead of crashing in
-    Mosaic lowering (round-3 review finding)."""
+    """kernel='int8' on a CPU host runs the kernel in interpret mode, as
+    the platform module decides, instead of failing to lower it."""
+    from openintel_tpu import platform
+
     docs, postings, dense, embedder = corpus
     sr = ShardedHybridRetriever(
         postings, dense, embedder, data=1, corpus=4, kernel="int8"
     )
-    assert sr.interpret is True
+    assert platform.interpret() is True
     res = sr.search(synthetic_queries_from_docs(docs, 3, seed=41), k=5)
     assert res.ids.shape == (3, 5)
 
 
 def test_scan_path_int8_interpret(corpus):
     """The scanned one-dispatch sharded program composed with the
-    production int8 kernel (interpret mode): shapes/ids sane and
+    int8 kernel (interpret mode): shapes/ids sane and
     consistent with the per-batch int8 path."""
     docs, postings, dense, embedder = corpus
     queries = synthetic_queries_from_docs(docs, 9, seed=51)
@@ -367,50 +367,6 @@ def test_scan_path_int8_interpret(corpus):
     )
     want = per_batch.search(queries, k=8, candidates_per_arm=16)
     got = scanned.search(queries, k=8, candidates_per_arm=16)
-    np.testing.assert_array_equal(got.ids, want.ids)
-    np.testing.assert_allclose(got.scores, want.scores, rtol=1e-5, atol=1e-6)
-
-
-def test_int4_kernel_sharded_hybrid(corpus):
-    """The nibble-packed int4 path through the sharded component: per-shard
-    int4 candidates + exact local rescore, all-gather merge — near-exact vs
-    single-chip and no packed/padding ids surfacing (corpus pads 1000 ->
-    4 x 16,384 docs; packed shards are (D, 8192) bytes each)."""
-    docs, postings, dense, embedder = corpus
-    sr = ShardedHybridRetriever(
-        postings, dense, embedder, data=2, corpus=4, kernel="int4",
-        interpret=True,
-    )
-    queries = synthetic_queries_from_docs(docs, 4, seed=29)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
-        queries, k=10, candidates_per_arm=20
-    )
-    got = sr.search(queries, k=10, candidates_per_arm=20)
-    rec = np.mean([
-        len({i for i in got.ids[b] if i >= 0} & {i for i in want.ids[b] if i >= 0})
-        / max((want.ids[b] >= 0).sum(), 1)
-        for b in range(4)
-    ])
-    assert rec >= 0.9, rec
-    assert got.ids.max() < N
-
-
-def test_scan_path_int4_interpret(corpus):
-    """The scanned one-dispatch sharded program composed with the int4
-    nibble-packed kernel (interpret mode): identical to the per-batch
-    int4 path — same discipline as the int8 scan test."""
-    docs, postings, dense, embedder = corpus
-    queries = synthetic_queries_from_docs(docs, 6, seed=57)
-    per_batch = ShardedHybridRetriever(
-        postings, dense, embedder, data=1, corpus=4, kernel="int4",
-        device_batch=256,
-    )
-    scanned = ShardedHybridRetriever(
-        postings, dense, embedder, data=1, corpus=4, kernel="int4",
-        device_batch=3,
-    )
-    want = per_batch.search(queries, k=6, candidates_per_arm=12)
-    got = scanned.search(queries, k=6, candidates_per_arm=12)
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_allclose(got.scores, want.scores, rtol=1e-5, atol=1e-6)
 
@@ -431,7 +387,7 @@ def test_filtered_hybrid_matches_single_chip(corpus, sharded):
     queries = synthetic_queries_from_docs(docs, 5, seed=43)
     mask = _mask_half()
     got = sharded.search(queries, k=10, candidates_per_arm=20, filter_mask=mask)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20, filter_mask=mask
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -453,7 +409,7 @@ def test_filtered_dense_mode_matches_single_chip(corpus, sharded):
     queries = synthetic_queries_from_docs(docs, 4, seed=46)
     mask = _mask_half(47)
     got = sharded.search(queries, k=10, mode="dense", filter_mask=mask)
-    want = DenseRetriever(dense, embedder, use_pallas=False).search(
+    want = DenseRetriever(dense, embedder, kernel="xla").search(
         queries, k=10, filter_mask=mask
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -471,7 +427,7 @@ def test_filtered_starvation_fallback_sharded(corpus, sharded):
     keep = [3, 130, 260, 390, 520, 650, 999]
     mask = make_filter_mask(N, include_ids=keep)
     got = sharded.search(queries, k=10, candidates_per_arm=20, filter_mask=mask)
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20, filter_mask=mask
     )
     np.testing.assert_array_equal(got.ids, want.ids)
@@ -551,7 +507,7 @@ def test_grouped_hybrid_matches_single_chip(corpus, sharded):
         queries, k=10, candidates_per_arm=20,
         filter_mask=masks, filter_group=groups,
     )
-    want = HybridRetriever(postings, dense, embedder, use_pallas=False).search(
+    want = HybridRetriever(postings, dense, embedder, kernel="xla").search(
         queries, k=10, candidates_per_arm=20,
         filter_mask=masks, filter_group=groups,
     )
@@ -582,7 +538,7 @@ def test_grouped_dense_mode_matches_single_chip(corpus, sharded):
     got = sharded.search(
         queries, k=10, mode="dense", filter_mask=masks, filter_group=groups
     )
-    want = DenseRetriever(dense, embedder, use_pallas=False).search(
+    want = DenseRetriever(dense, embedder, kernel="xla").search(
         queries, k=10, filter_mask=masks, filter_group=groups
     )
     np.testing.assert_array_equal(got.ids, want.ids)
